@@ -2,11 +2,14 @@
 """Playback example (parity with the reference's example/main.go).
 
 Decodes an MP3 through the public Decoder and plays it on the default audio
-device when an audio backend is available; otherwise writes a WAV file next
-to the input — this image has no sound device, so the WAV path is the
-default demonstration.
+device when an audio backend (simpleaudio) is installed; otherwise writes a
+WAV file, by default next to the input.
 
-Usage: python example/main.py [input.mp3] [output.wav]
+Usage: python example/main.py input.mp3 [output.wav]
+
+Without an MP3 at hand, write one with the stream generator:
+  python -c "from go_mp3_tpu import synth; open('demo.mp3', 'wb').write(
+      synth.generate_stream(synth.STEREO, 385))"
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ def wav_header(n_pcm_bytes: int, sample_rate: int) -> bytes:
 
 
 def main() -> None:
-    src = sys.argv[1] if len(sys.argv) > 1 else "/root/reference/example/classic_lame.mp3"
-    dst = sys.argv[2] if len(sys.argv) > 2 else "/tmp/out.wav"
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    src = sys.argv[1]
+    dst = sys.argv[2] if len(sys.argv) > 2 else str(Path(src).with_suffix(".wav"))
 
     with open(src, "rb") as f:
         d = Decoder(f)

@@ -1,11 +1,11 @@
-"""go_mp3_tpu — a TPU-native MPEG-1/2 Layer III decoder framework.
+"""go_mp3_tpu — a batched MPEG-1/2 Layer III decoder framework in JAX.
 
 Public surface (parity with the reference library llehouerou/go-mp3):
  - Decoder: pull-based PCM stream with read/seek/length/duration/position,
    time- and sample-accurate seeking (decode.go),
  - lameinfo: Xing/LAME VBR + gapless metadata parsing (lameinfo/),
  - GaplessDecoder: delay/padding-trimmed playback helper,
- - the layered internals: bitstream (host parse), ops (TPU granule DSP),
+ - the layered internals: bitstream (host parse), ops (device granule DSP),
    models (host->device pipeline), parallel (multi-stream sharded decode).
 """
 

@@ -3,8 +3,8 @@ side info, bit reservoir, scalefactors and Huffman spectral decode.
 
 Everything here is inherently serial per stream (variable-length codes, the
 bit reservoir's backreference into previous frames) and therefore runs on the
-host; the output is fixed-shape granule batches consumed by the TPU DSP in
-go_mp3_tpu.ops.
+host; the output is fixed-shape granule batches consumed by the device DSP
+in go_mp3_tpu.ops.
 """
 
 from .bits import BitReader, append

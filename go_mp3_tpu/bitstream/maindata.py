@@ -12,7 +12,7 @@ Mirrors /root/reference/internal/maindata/maindata.go and huffman.go:
 
 The spectral output is kept as int32 — raw Huffman magnitudes (linbits and
 sign applied) exactly as held in MainData.Is before requantization — which is
-the host->TPU interface of this framework.
+the host->device interface of this framework.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Shared constants, enums and typed errors for the TPU-native MP3 framework.
+"""Shared constants, enums and typed errors for the MP3 decoder framework.
 
 Semantics match the reference decoder's constant layer
 (/root/reference/internal/consts/consts.go:25-97) — these are ISO/IEC 11172-3

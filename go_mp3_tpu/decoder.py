@@ -65,7 +65,12 @@ class Decoder:
         if backend in ("device", "exact") and use_native is not False:
             self._native = _maybe_native_stream(reader, dsp=backend)
             if self._native is None and (use_native is True or backend == "exact"):
-                raise MP3Error("mp3: native parser unavailable for this source")
+                from .native.lib import build_error
+
+                raise MP3Error(
+                    "mp3: native parser unavailable for this source"
+                    + (f" ({build_error()})" if build_error() else "")
+                )
         self._source = Source(reader)
         self._frame_reader = FrameReader()
         self._backend_name = backend

@@ -1,9 +1,11 @@
 """ctypes bindings for the native host parser (libmp3parse.so).
 
 The native parser emits granule-batch arrays directly (spectra, scalefactors,
-packed meta), removing the Python parse+pack cost from the decode path. Falls
-back gracefully: `available()` is False when the library hasn't been built,
-and callers keep using the pure-Python parser.
+packed meta), removing the Python parse+pack cost from the decode path. The
+library is built from the tracked sources on first use (and rebuilt when any
+of them is newer). `available()` is False when it cannot be built, so
+callers that can fall back keep using the pure-Python parser; callers that
+need it get the compiler's error from `require()`.
 """
 
 from __future__ import annotations
@@ -47,23 +49,45 @@ META_SUBBLOCK_GAIN = 14  # [2][3]
 META_COUNT1 = 20  # [2]
 META_GR_INDEX = 22
 
+_SOURCES = ("mp3parse.cpp", "mp3dsp.cpp", "synth_window_data.cpp", "huffman_data.h")
+
 _lib = None
+_build_error: str | None = None
 
 
 def _ensure_built() -> bool:
-    if _SO.exists():
-        src_mtime = (_DIR / "mp3parse.cpp").stat().st_mtime
-        hdr_mtime = (_DIR / "huffman_data.h").stat().st_mtime
-        if _SO.stat().st_mtime >= max(src_mtime, hdr_mtime):
-            return True
+    global _build_error
+    if _SO.exists() and _SO.stat().st_mtime >= max(
+        (_DIR / name).stat().st_mtime for name in _SOURCES
+    ):
+        return True
     script = _DIR.parent.parent / "tools" / "build_native.sh"
     try:
         subprocess.run(
-            ["sh", str(script)], check=True, capture_output=True, timeout=120
+            ["sh", str(script)], check=True, capture_output=True, text=True,
+            timeout=300,
         )
-        return _SO.exists()
-    except Exception:
+    except subprocess.CalledProcessError as e:
+        _build_error = f"{script} failed (exit {e.returncode}):\n{e.stderr}"
         return False
+    except (OSError, subprocess.TimeoutExpired) as e:
+        _build_error = f"{script} could not run: {e}"
+        return False
+    return _SO.exists()
+
+
+def require():
+    """The loaded library; raises RuntimeError carrying the build's error
+    output when it cannot be built."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"libmp3parse.so not available: {_build_error}")
+    return lib
+
+
+def build_error() -> str | None:
+    """Why the last build attempt failed (None if it did not)."""
+    return _build_error
 
 
 def _load():
@@ -204,9 +228,7 @@ class NativeParser:
     (used by Decoder.seek to restart at a frame boundary)."""
 
     def __init__(self, data: bytes, offset: int = 0):
-        lib = _load()
-        if lib is None:
-            raise RuntimeError("libmp3parse.so not available")
+        lib = require()
         self._lib = lib
         self._data = data  # keep alive
         offset = int(offset)
@@ -466,9 +488,7 @@ class StreamingNativeParser(NativeParser):
     parse_* returning 0 means "need more data" until eof has been fed."""
 
     def __init__(self):
-        lib = _load()
-        if lib is None:
-            raise RuntimeError("libmp3parse.so not available")
+        lib = require()
         self._lib = lib
         self._data = None
         self.base_offset = 0
@@ -496,9 +516,7 @@ class NativeDsp:
     Replicates the reference's float32 operation order; see mp3dsp.cpp."""
 
     def __init__(self):
-        lib = _load()
-        if lib is None:
-            raise RuntimeError("libmp3parse.so not available")
+        lib = require()
         self._lib = lib
         self._s = lib.gmp_dsp_create()
 
@@ -609,9 +627,7 @@ def pack_fused_tail(
 def index_stream(data: bytes):
     """Header-only index scan: (frame_starts int64[], bytes_per_frame,
     sample_rate)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("libmp3parse.so not available")
+    lib = require()
     cap = max(len(data) // 24, 64)  # frames are >= 24 bytes
     starts = np.empty(cap, dtype=np.int64)
     bpf = ctypes.c_int32(0)

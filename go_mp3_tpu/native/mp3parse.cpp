@@ -1,4 +1,9 @@
-// Native host-side MP3 bitstream parser for the TPU decode framework.
+// Native host-side MP3 bitstream parser for the batched decode framework.
+//
+// Performance notes marked "measured" in this file (and in
+// tools/build_native.sh) were taken on the project's earlier single-core
+// development host, not on the host of the GPU machines it now runs on;
+// they are leads to re-measure, not settled results.
 //
 // Covers the inherently serial layers (tag skip, frame-header sync, side
 // info, bit-reservoir assembly, scalefactors, Huffman spectral decode) at
@@ -77,7 +82,7 @@ constexpr int kBandShort[2][3][14] = {
 };
 
 // Short-block reorder permutations (frame.go:257-302): applied on host so
-// the device path consumes post-reorder spectra with no TPU gather.
+// the device path consumes post-reorder spectra with no device gather.
 // kind 0 = pure short (all bands), kind 1 = mixed (bands 3+ only).
 struct ReorderPerms {
   int16_t perm[2][3][2][kSamplesPerGr];
@@ -1908,8 +1913,8 @@ int gmp_parse_packed8_many(void** pv, int n_streams, int cap, int8_t* tail8,
 }
 
 // Pack the fused transfer buffer's TAIL region: [S, T, 1024] granule-major
-// parser output -> [S, 2, l, T] channel-major line-major (the relay-
-// compression-friendly wire layout), shipping only the first `l` tail
+// parser output -> [S, 2, l, T] channel-major line-major (the fused wire
+// layout), shipping only the first `l` tail
 // lines per channel. This is a [T, 512] -> [l, T] byte transpose per
 // (stream, channel); numpy's strided-assignment version runs ~1.5 GB/s
 // (dest-order iteration misses cache on every source element), the

@@ -9,7 +9,7 @@ as the reference decoder builds them at init:
    (frame.go:488-497, 499-628),
 plus precomputed per-line scalefactor-band maps and short-block reorder
 permutations that turn the reference's data-dependent loops
-(frame.go:184-302) into static gathers, which is what the TPU path needs.
+(frame.go:184-302) into static gathers, which is what the device path needs.
 
 Band-variant index: v = lsf * 3 + sfreq  (6 variants).
 Block class: 0 = long, 1 = short (non-mixed), 2 = mixed.
@@ -206,7 +206,7 @@ for _lsf in range(2):
 # ---------------------------------------------------------------------------
 # The device path receives spectra ALREADY in reordered (interleaved) layout
 # (the host applies REORDER_PERM_SHORT after Huffman decode — a trivial int
-# shuffle there, a 9M-element gather avoided on TPU). Requantization maps are
+# shuffle there, a 9M-element gather avoided on the device). Requantization maps are
 # therefore composed with the permutation: line l was source line perm[l].
 #
 # For mixed blocks, lines < 36 take the long path (masked elementwise), where

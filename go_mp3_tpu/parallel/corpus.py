@@ -227,18 +227,15 @@ def decode_corpus_fast(
 
     C++ packed parse (gmp_parse_packed8: int8 tail spectra + exact int16
     head plane + byte sidecar — the minimal-byte device interface) ->
-    asynchronous
-    line-major uploads (measured ~32% cheaper through compressing links
-    than granule-major) -> ONE jitted lax.scan over all chunks with the
-    DSP state as carry (amortizes per-execute dispatch latency).
+    asynchronous line-major uploads -> ONE jitted lax.scan over all chunks
+    with the DSP state as carry (amortizes per-execute dispatch latency).
 
     This is the same pipeline bench.py measures; `decode_corpus` below
     keeps the pure-Python parse for auditability.
 
-    Returns CorpusResult when fetch=True (PCM pulled to host — on a slow
-    device link this readback can dominate; pass fetch=False to keep the
-    PCM on device and get (pcms [C,S,chunk_t*576,2] int16 jax.Array,
-    valids [C,S] np.ndarray) for on-device consumption).
+    Returns CorpusResult when fetch=True (PCM pulled to host); pass
+    fetch=False to keep the PCM on device and get (pcms [C,S,chunk_t*576,2]
+    int16 jax.Array, valids [C,S] np.ndarray) for on-device consumption.
 
     Falls back to the int16 packed interface if a (pathological) stream
     clips the int8 tail plane (|value| > 127 past per-channel line 64).
@@ -280,8 +277,7 @@ def decode_corpus_fast(
     "many independent streams parsed in parallel threads". The C parser
     calls drop the GIL and each lane's parser/output rows are touched by
     exactly one worker, so output is byte-identical to serial (tested with
-    k=2). Scaling needs cores: this repo's 1-core dev host demonstrates
-    correctness, not speedup. Fused path only.
+    k=2). Fused path only.
 
     mono_split=True (default) ships lanes whose FIRST frame is mono with
     a half-width wire layout (only the channel-0 planes; ch1 of a mono
@@ -293,8 +289,9 @@ def decode_corpus_fast(
     against the sidecar mono bits; a stereo granule appearing mid-stream
     in a "mono" lane re-runs the corpus with the universal layout. Under
     a mesh the split stays active when each lane group's size divides
-    the mesh evenly (both groups then shard zero-collective); otherwise
-    it falls back to the universal layout. Fused path only.
+    the mesh evenly (both groups then shard zero-collective) and the PCM
+    is fetched; otherwise it falls back to the universal layout. Fused
+    path only.
     """
     import jax
     import jax.numpy as jnp
@@ -512,8 +509,14 @@ def decode_corpus_fast(
         if split:
             flags = [_mono_first_frame(d) for d in stream_bytes]
             ns = sum(1 for f in flags if not f)
+            # Under a mesh each lane group shards on its own. The host can
+            # re-join the groups in caller order (fetch=True); the cards
+            # cannot without moving PCM between them, so a device-resident
+            # result keeps the universal layout there.
             mesh_ok = mesh is None or (
-                ns % mesh.size == 0 and (n_streams - ns) % mesh.size == 0
+                (fetch or mesh.size == 1)
+                and ns % mesh.size == 0
+                and (n_streams - ns) % mesh.size == 0
             )
             if any(flags) and mesh_ok:
                 order = [i for i, f in enumerate(flags) if not f] + [

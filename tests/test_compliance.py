@@ -22,11 +22,10 @@ except Exception:
 
 
 @pytest.mark.parametrize("name", ["classic_lame", "mpeg2"])
-def test_device_vs_golden_full_compliance(request, name):
-    data_path = f"/root/reference/example/{name}.mp3"
-    if not pathlib.Path(data_path).exists():
-        pytest.skip("fixture missing")
-    result = compliance.run(data_path, "device", "golden", None)
+def test_device_vs_golden_full_compliance(request, name, tmp_path):
+    data_path = tmp_path / f"{name}.mp3"
+    data_path.write_bytes(request.getfixturevalue(f"fixture_{name}"))
+    result = compliance.run(str(data_path), "device", "golden", None)
     assert result["verdict"] == "FULL COMPLIANCE", result
     assert result["offset"] == 0  # same decoder family: no delay skew
 

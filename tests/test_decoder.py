@@ -132,8 +132,8 @@ def test_garbage_input_rejected():
 # ---------------------------------------------------------------------------
 
 
-def test_metadata_classic(fixture_classic_lame):
-    d = Decoder(fixture_classic_lame, backend="golden")
+def test_metadata_classic(reference_classic_lame):
+    d = Decoder(reference_classic_lame, backend="golden")
     assert d.sample_rate() == 44100
     assert d.bytes_per_frame() == 1152 * 4
     assert d.length() == 385 * 1152 * 4
@@ -141,8 +141,8 @@ def test_metadata_classic(fixture_classic_lame):
     assert d.sample_count() == 385 * 1152
 
 
-def test_metadata_mpeg2(fixture_mpeg2):
-    d = Decoder(fixture_mpeg2, backend="golden")
+def test_metadata_mpeg2(reference_mpeg2):
+    d = Decoder(reference_mpeg2, backend="golden")
     assert d.sample_rate() == 22050
     assert d.bytes_per_frame() == 576 * 4
     assert d.length() == 2872 * 576 * 4

@@ -86,10 +86,10 @@ def test_chunking_invariance_deep(fixture_classic_lame):
     """A granule's PCM must not depend on its row position in the chunk:
     decoding 768 granules split at arbitrary (odd, mid-frame, short-block-
     heavy) boundaries is byte-identical to uniform 128-granule chunks.
-    Regression: a one-hot-matmul IMDCT window formulation was ~0.5 ms/chunk
-    faster on v5e but broke exactly this (XLA fused the windowing multiply
-    differently near the dot), silently desyncing streaming vs whole-file
-    decode by 1 LSB on a handful of samples."""
+    Regression: a one-hot-matmul IMDCT window formulation broke exactly
+    this (XLA fused the windowing multiply differently near the dot),
+    silently desyncing streaming vs whole-file decode by 1 LSB on a
+    handful of samples."""
     import jax.numpy as jnp
 
     import go_mp3_tpu.ops.granule as G
@@ -157,9 +157,9 @@ def test_padding_does_not_leak(fixture_classic_lame):
     assert sd1.decode_pending(flush=True) == sd2.decode_pending(flush=True)
 
 
-def test_xing_frame_decodes_silent(fixture_classic_lame):
+def test_xing_frame_decodes_silent(reference_classic_lame):
     """Frame 0 of a LAME file is the Xing/Info header frame: pure silence."""
-    frames = parse_frames(fixture_classic_lame, nmax=1)
+    frames = parse_frames(reference_classic_lame, nmax=1)
     gd = GoldenDecoder()
     pcm = gd.decode_frame(
         frames[0].header, frames[0].side_info, frames[0].main_data

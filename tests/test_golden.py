@@ -1,12 +1,16 @@
 """Pinned golden PCM vectors: exactness as a regression gate.
 
 The reference's acceptance bar is bit-exact PCM (BASELINE.md); with no Go
-toolchain or mpg123 in this image the external oracle can't run here, so
-the exact backend's full decodes are FROZEN as SHA-256 pins
+toolchain or mpg123 at hand the external oracle cannot run, so the full
+decodes of the two generated fixture streams (tests/conftest.py, from
+go_mp3_tpu.synth) are FROZEN as SHA-256 pins
 (tests/golden/pcm_sha256.json). Any change that drifts a single output
 byte of the exact (C++ reference-order f32) or golden (numpy f64) backend
-fails these tests; the device (JAX) backend is held to the exact backend
-per-sample with an explicit bound.
+fails these tests, and so does any change to the generator's bytes; the
+device (JAX) backend is held to the exact backend per-sample with an
+explicit bound. To re-pin after an intended change, decode each fixture
+with Decoder(data, backend=...).read_all() and store its SHA-256 and
+length under "<fixture>.<backend>".
 
 Model: compliance_test.go:30-45 (the ISO thresholds these pins substitute
 for, given the missing oracle).

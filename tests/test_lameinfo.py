@@ -124,12 +124,12 @@ def test_parse_from_reader():
     assert info.frame_count == 1000
 
 
-def test_real_fixture_lame_header(fixture_classic_lame):
+def test_real_fixture_lame_header(reference_classic_lame):
     """classic_lame.mp3 was encoded by LAME: must carry a Xing tag with
     delay/padding (lameinfo_test.go:471-558 model)."""
     from go_mp3_tpu.bitstream.source import Source
 
-    src = Source(io.BytesIO(fixture_classic_lame))
+    src = Source(io.BytesIO(reference_classic_lame))
     src.skip_tags()
 
     class R:
@@ -153,12 +153,12 @@ def test_toc_seek_point():
     assert info.seek_point(1.0, 100000) <= 100000
 
 
-def test_gapless_decoder(fixture_classic_lame):
+def test_gapless_decoder(reference_classic_lame):
     from go_mp3_tpu import Decoder, GaplessDecoder
 
-    g = GaplessDecoder(fixture_classic_lame, backend="golden")
+    g = GaplessDecoder(reference_classic_lame, backend="golden")
     assert g.info is not None and g.info.is_xing
-    plain = Decoder(fixture_classic_lame, backend="golden")
+    plain = Decoder(reference_classic_lame, backend="golden")
     trim = (g.info.total_delay() + g.info.total_padding()) * 4
     assert g.length() == plain.length() - trim
     first = g.read(4096)

@@ -335,13 +335,13 @@ def test_streaming_parser_split_feeds_match(fixture_mpeg2):
         assert np.array_equal(allsp, ref[0]), chunk
 
 
-def test_streaming_sync_limit_is_terminal_bounded_memory():
+def test_streaming_sync_limit_is_terminal_bounded_memory(fixture_classic_lame):
     """A >=64 KiB un-syncable run in a fed stream must kill the parse
     (reference sync-limit semantics) WITHOUT the parser buffering the rest
     of the stream forever: eof turns True and further feeds are dropped."""
     from go_mp3_tpu.native.lib import META_WIDTH, StreamingNativeParser
 
-    good = open("/root/reference/example/classic_lame.mp3", "rb").read()[:4000]
+    good = fixture_classic_lame[:4000]
     s = StreamingNativeParser()
     s.feed(good)
     sp = np.zeros((64, 2, 576), np.int16)
@@ -371,12 +371,12 @@ def test_streaming_sync_limit_is_terminal_bounded_memory():
     s.close()
 
 
-def test_streaming_giant_id3_tag_skipped_incrementally():
+def test_streaming_giant_id3_tag_skipped_incrementally(fixture_classic_lame):
     """A multi-MB leading ID3v2 tag fed in small pieces is consumed
     incrementally (the buffer compacts instead of accumulating the tag)."""
     from go_mp3_tpu.native.lib import META_WIDTH, StreamingNativeParser
 
-    audio = open("/root/reference/example/classic_lame.mp3", "rb").read()
+    audio = fixture_classic_lame
     size = 5_000_000
     hdr = b"ID3\x04\x00\x00" + bytes(
         [(size >> 21) & 0x7F, (size >> 14) & 0x7F, (size >> 7) & 0x7F,

@@ -209,8 +209,8 @@ def test_decode_corpus_fast_threaded_parse_identical(
 ):
     """n_threads=2 (disjoint lane subsets, GIL-free C parser calls) is
     byte-identical to the serial parse — the SURVEY section 7(b) threaded
-    fleet-parse capability. This 1-core host demonstrates correctness,
-    not speedup."""
+    fleet-parse capability (correctness only; speed is not measured
+    here)."""
     from go_mp3_tpu.parallel.corpus import decode_corpus_fast
 
     streams = [
@@ -308,19 +308,24 @@ def test_mono_split_on_mesh_and_device_resident(
     )
     assert got.pcm == ref.pcm and got.granules == ref.granules
 
-    # fetch=False: device-resident PCM + valids, caller lane order
-    pcms, valids = decode_corpus_fast(streams, chunk_t=32, fetch=False)
-    host = np.asarray(pcms)
+    # fetch=False: device-resident PCM + valids, caller lane order, on one
+    # device and sharded over the mesh (where the lane groups stay joined:
+    # re-joining them on the devices would move PCM between them)
     refb = [np.frombuffer(p, "<i2").reshape(-1, 2) for p in ref.pcm]
-    for s in range(len(streams)):
-        got_s = np.concatenate(
-            [
-                host[c, s, : int(valids[c, s]) * 576]
-                for c in range(host.shape[0])
-                if int(valids[c, s])
-            ]
+    for mesh in (None, make_mesh()):
+        pcms, valids = decode_corpus_fast(
+            streams, chunk_t=32, fetch=False, mesh=mesh
         )
-        np.testing.assert_array_equal(got_s, refb[s])
+        host = np.asarray(pcms)
+        for s in range(len(streams)):
+            got_s = np.concatenate(
+                [
+                    host[c, s, : int(valids[c, s]) * 576]
+                    for c in range(host.shape[0])
+                    if int(valids[c, s])
+                ]
+            )
+            np.testing.assert_array_equal(got_s, refb[s])
 
 
 def test_mono_split_mesh_indivisible_group_falls_back(

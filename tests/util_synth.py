@@ -7,6 +7,8 @@ built from the header field definitions rather than copied bytes.
 
 from __future__ import annotations
 
+from go_mp3_tpu.synth import BitWriter
+
 
 def mpeg1_layer3_header(
     bitrate_index: int = 9,  # 128 kbps
@@ -91,31 +93,6 @@ def apev2_tag(n_items: int = 1) -> bytes:
     return block(0xA0000000) + items + block(0x80000000)
 
 
-class _BitWriter:
-    """MSB-first bit packer for hand-built frames."""
-
-    def __init__(self) -> None:
-        self.bits: list[int] = []
-
-    def write(self, value: int, n: int) -> None:
-        for k in range(n - 1, -1, -1):
-            self.bits.append((value >> k) & 1)
-
-    def tobytes(self, pad_to: int | None = None) -> bytes:
-        bits = list(self.bits)
-        while len(bits) % 8:
-            bits.append(0)
-        out = bytearray()
-        for i in range(0, len(bits), 8):
-            b = 0
-            for bit in bits[i : i + 8]:
-                b = (b << 1) | bit
-            out.append(b)
-        if pad_to is not None:
-            out.extend(b"\x00" * (pad_to - len(out)))
-        return bytes(out)
-
-
 def low_bitrate_mpeg2_stream(n_fillers: int = 19, n_trailing: int = 6):
     """A valid 8 kbps MPEG-2 mono stream (26-byte frames, 13 main-data bytes
     each) whose frame `n_fillers` carries real spectral content with
@@ -156,7 +133,7 @@ def low_bitrate_mpeg2_stream(n_fillers: int = 19, n_trailing: int = 6):
         (e[0], e[1]) for e in book if e[2] == 1 and e[3] == 1
     )
     n_pairs = 240
-    md = _BitWriter()
+    md = BitWriter()
     for p in range(n_pairs):
         md.write(code, length)
         md.write(p & 1, 1)  # x sign (alternating, avoids DC)
@@ -173,7 +150,7 @@ def low_bitrate_mpeg2_stream(n_fillers: int = 19, n_trailing: int = 6):
     payload.extend(bytes(total_main - len(payload)))
 
     def side_info(mdb: int, part23: int, big_values: int) -> bytes:
-        si = _BitWriter()
+        si = BitWriter()
         si.write(mdb, 8)  # main_data_begin (8 bits for MPEG-2)
         si.write(0, 1)  # private (mono)
         si.write(part23, 12)
@@ -230,7 +207,7 @@ def escape_heavy_frame(n_pairs: int = 20, linbit_value: int = 4000,
     p23 = n_pairs * pair_bits  # no scalefactor bits (scalefac_compress=0)
 
     # side info: mono MPEG-1, 17 bytes
-    si = _BitWriter()
+    si = BitWriter()
     si.write(0, 9)  # main_data_begin
     si.write(0, 5)  # private
     si.write(0, 4)  # scfsi
@@ -251,7 +228,7 @@ def escape_heavy_frame(n_pairs: int = 20, linbit_value: int = 4000,
     side = si.tobytes()
     assert len(side) == 17, len(side)
 
-    md = _BitWriter()
+    md = BitWriter()
     for _gr in range(2):
         for _p in range(n_pairs):
             md.write(code, length)

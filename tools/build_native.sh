@@ -1,8 +1,9 @@
 #!/bin/sh
 # Build the native host parser -> go_mp3_tpu/native/libmp3parse.so
 #
-# Plain -O3, no PGO: profile-guided builds were measured round 5 at 3-8%
-# SLOWER than plain -O3 on the production corpus-parse workload
+# Plain -O3, no PGO: profile-guided builds were measured (round 5, on the
+# project's earlier single-core development host, not the GPU machine's
+# host) at 3-8% SLOWER than plain -O3 on the production corpus-parse workload
 # (interleaved same-process A/B, both with the legacy mixed-entry-point
 # trainer and with a trainer driving gmp_parse_packed8_many on the exact
 # bench corpus). GCC's profile-driven block layout pessimizes the

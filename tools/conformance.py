@@ -2,12 +2,11 @@
 """One-command conformance bundle (`make conformance`).
 
 The reference's keystone correctness test shells out to mpg123
-(compliance_test.go:80-92) — an EXTERNAL oracle. Neither mpg123 nor a Go
-toolchain exists in this image, so bit-exactness against the actual
-reference decoder cannot be proven here. This tool closes as much of that
-gap as the image allows: it produces a self-contained artifact
-(`conformance/`) that an oracle-equipped machine — this repo plus mpg123
-— can verify in one command per file.
+(compliance_test.go:80-92) — an EXTERNAL oracle. Without mpg123 or a Go
+toolchain, bit-exactness against the actual reference decoder cannot be
+proven. This tool closes as much of that gap as it can: it produces a
+self-contained artifact (`conformance/`) that an oracle-equipped machine —
+this repo plus mpg123 — can verify in one command per file.
 
 The bundle contains:
   REPORT.json   input SHA-256s; per-backend (exact/golden/device) PCM
@@ -15,10 +14,12 @@ The bundle contains:
                 between the independent backends; the exact oracle
                 invocations to run elsewhere
   README.md     how to run the oracle check
+  generated_stereo.mp3, generated_mono.mp3
+                the test suite's two fixture streams (go_mp3_tpu.synth;
+                written by this tool, not kept in git)
   synthetic_escape.mp3, synthetic_lowrate.mp3
                 deterministic in-repo streams (escape-heavy MPEG-1 and
-                low-bitrate MPEG-2 edge cases) so conformance coverage
-                does not depend only on the two reference fixtures
+                low-bitrate MPEG-2 edge cases)
 
 Run: python tools/conformance.py  (writes conformance/, prints a summary)
 """
@@ -34,10 +35,6 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tests"))
 
-FIXTURES = [
-    ("/root/reference/example/classic_lame.mp3", "classic_lame"),
-    ("/root/reference/example/mpeg2.mp3", "mpeg2"),
-]
 BACKENDS = ["exact", "golden", "device"]
 ORACLE_CMD = "mpg123 -e s16 --stereo -s -q"
 
@@ -60,27 +57,34 @@ def build_synthetic(outdir: pathlib.Path) -> list[tuple[str, str]]:
         + [U.silent_frame() for _ in range(4)]
     )
     low, _, _ = U.low_bitrate_mpeg2_stream(n_fillers=19, n_trailing=6)
+    from go_mp3_tpu.synth import MONO, STEREO, generate_stream
+
     files = []
-    for name, data in [("synthetic_escape.mp3", esc),
-                       ("synthetic_lowrate.mp3", low)]:
+    for name, data in [
+        ("generated_stereo.mp3", generate_stream(STEREO, 385, seed=1)),
+        ("generated_mono.mp3", generate_stream(MONO, 2872, seed=2)),
+        ("synthetic_escape.mp3", esc),
+        ("synthetic_lowrate.mp3", low),
+    ]:
         (outdir / name).write_bytes(data)
-        files.append((str(outdir / name), name.rsplit(".", 1)[0]))
+        path = (outdir / name).relative_to(ROOT)
+        files.append((str(path), name.rsplit(".", 1)[0]))
     return files
 
 
 def main() -> int:
     import jax
 
-    jax.config.update("jax_platforms", "cpu")  # correctness artifact; the
-    # device backend's XLA chain is platform-portable and the parity gates
-    # pin CPU==TPU within 1 LSB (tests/test_stage_parity.py)
+    jax.config.update("jax_platforms", "cpu")  # correctness artifact: the
+    # device backend's XLA chain is platform-portable (the card's parity
+    # is checked by chip_smoke.py)
 
     from compliance import FULL_MAXDIFF, FULL_RMS, compare, _stereo
     from go_mp3_tpu import Decoder
 
     outdir = ROOT / "conformance"
     outdir.mkdir(exist_ok=True)
-    files = FIXTURES + build_synthetic(outdir)
+    files = build_synthetic(outdir)
 
     report: dict = {
         "purpose": (
@@ -94,7 +98,7 @@ def main() -> int:
     }
 
     for path, name in files:
-        data = open(path, "rb").read()
+        data = (ROOT / path).read_bytes()
         entry: dict = {
             "path": path,
             "input_sha256": hashlib.sha256(data).hexdigest(),
@@ -140,10 +144,10 @@ def main() -> int:
     # corpus through decode_corpus_fast with every production feature on
     # (fused transfers, bucketed caps, mono_split, threaded parse, drain),
     # assert byte-identity with the per-stream device decodes above, and
-    # freeze the corpus PCM SHA-256s (round-4 verdict item 7)
+    # freeze the corpus PCM SHA-256s
     from go_mp3_tpu.parallel.corpus import decode_corpus_fast
 
-    corpus_streams = [open(path, "rb").read() for path, _ in files]
+    corpus_streams = [(ROOT / path).read_bytes() for path, _ in files]
     corpus = decode_corpus_fast(
         corpus_streams,
         chunk_t=64,
@@ -184,7 +188,7 @@ def main() -> int:
 
 Self-contained artifact for verifying go_mp3_tpu against EXTERNAL ground
 truth (the reference's own keystone test shells out to mpg123 —
-`compliance_test.go:80-92` — which this image does not have).
+`compliance_test.go:80-92`).
 
 `REPORT.json` freezes, for each fixture and each of the three independent
 backends (`exact` C++ f32 / `golden` numpy f64 / `device` JAX-XLA):
@@ -200,9 +204,11 @@ for each command in REPORT.json "oracle_commands":
     maxdiff / alignment / histogram
 ```
 
-The two `synthetic_*.mp3` files are deterministic in-repo edge-case
-streams (escape-heavy MPEG-1; low-bitrate MPEG-2) built by
-`tests/util_synth.py`; regenerate + re-verify everything with
+The two `generated_*.mp3` files are the test suite's fixture streams,
+written by `make conformance` from `go_mp3_tpu.synth` (run it first: they
+are not kept in git). The two `synthetic_*.mp3` files are deterministic
+in-repo edge-case streams (escape-heavy MPEG-1; low-bitrate MPEG-2) built
+by `tests/util_synth.py`; regenerate + re-verify everything with
 `make conformance`.
 """
     )

@@ -63,11 +63,11 @@ def main() -> int:
     n_mut = int(sys.argv[1]) if len(sys.argv) > 1 else 200
     seed0 = int(sys.argv[2]) if len(sys.argv) > 2 else 0
 
+    from go_mp3_tpu.synth import MONO, STEREO, generate_stream
+
     fixtures = {
-        "classic": open(
-            "/root/reference/example/classic_lame.mp3", "rb"
-        ).read()[:60_000],
-        "mpeg2": open("/root/reference/example/mpeg2.mp3", "rb").read()[:60_000],
+        "classic": generate_stream(STEREO, 385, seed=1)[:60_000],
+        "mpeg2": generate_stream(MONO, 2872, seed=2)[:60_000],
     }
 
     checked = overflowed = errored = 0

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Interleaved A/B of two libmp3parse variants: alternate full-corpus
-parses A,B,A,B,... in ONE process so shared-host weather hits both
-equally. Reports min and median process-CPU per variant + the pairwise
-ratio (the decision statistic — single-variant timings are weather
-noise on this shared host; see CLAUDE.md).
+parses A,B,A,B,... in ONE process so host drift hits both equally.
+Reports min and median process-CPU per variant + the pairwise ratio (the
+decision statistic — single-variant timings are noise on a shared host).
+The corpus is synth.continuity_corpus(0).
 
 Usage: python tools/parse_ab.py A.so B.so [rounds=9]
 Build variants with the FLAGS from tools/build_native.sh."""
@@ -11,8 +11,13 @@ import ctypes
 import statistics
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from go_mp3_tpu.synth import continuity_corpus  # noqa: E402
 
 SO_A, SO_B = sys.argv[1], sys.argv[2]
 ROUNDS = int(sys.argv[3]) if len(sys.argv) > 3 else 9
@@ -29,41 +34,12 @@ def bind(so):
         ctypes.POINTER(ctypes.c_int8), ctypes.POINTER(ctypes.c_int16),
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32)]
-    lib.gmp_index.restype = ctypes.c_int64
-    lib.gmp_index.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32)]
     return lib
 
 
 libs = {"A": bind(SO_A), "B": bind(SO_B)}
 
-classic = open("/root/reference/example/classic_lame.mp3", "rb").read() * 4
-mpeg2 = open("/root/reference/example/mpeg2.mp3", "rb").read()
-
-
-def index(lib, data):
-    cap = max(len(data) // 24, 64)
-    starts = np.empty(cap, np.int64)
-    bpf, sr = ctypes.c_int32(0), ctypes.c_int32(0)
-    n = lib.gmp_index(data, len(data),
-                      starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-                      cap, ctypes.byref(bpf), ctypes.byref(sr))
-    return starts[:n]
-
-
-sc = index(libs["A"], classic)
-sm = index(libs["A"], mpeg2)
-
-
-def rot(data, starts, k):
-    off = int(starts[k % len(starts)])
-    return data[off:] + data[:off]
-
-
-streams = [rot(classic, sc, 1 + 29 * s) for s in range(48)] + [
-    rot(mpeg2, sm, 1 + 43 * s) for s in range(16)]
+streams = continuity_corpus(0)
 
 S, T, NC = len(streams), 240, 13
 tail = np.empty((S, T, 1024), np.int8)

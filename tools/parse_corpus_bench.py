@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Standalone full-corpus parse probe — the ceiling's host term, without
-importing jax. Mirrors bench.py's geometry + parse probe exactly: 64
-streams (48 classic x4 + 16 mpeg2, frame-rotated), chunk_t=240,
+importing jax. Mirrors bench.py's geometry + parse probe exactly: the 64
+streams of synth.continuity_corpus(0) (48 stereo + 16 mono), chunk_t=240,
 BatchParser.parse_chunk_into over a reusable pool, process-CPU time,
 min/median over N samples. Use to A/B parser changes quickly.
 """
@@ -13,9 +13,11 @@ import statistics
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from go_mp3_tpu.consts import SAMPLES_PER_GR
 from go_mp3_tpu.native.lib import (
@@ -24,29 +26,19 @@ from go_mp3_tpu.native.lib import (
     SP8_TAIL_WIDTH,
     BatchParser,
     NativeParser,
-    index_stream,
 )
-
-
-def rotate_at_frame(data: bytes, frame_starts, k: int) -> bytes:
-    off = int(frame_starts[k % len(frame_starts)])
-    return data[off:] + data[:off]
+from go_mp3_tpu.synth import continuity_corpus
 
 
 def main() -> None:
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 7
-    classic = open("/root/reference/example/classic_lame.mp3", "rb").read() * 4
-    mpeg2 = open("/root/reference/example/mpeg2.mp3", "rb").read()
     n_classic = int(os.environ.get("GOMP3_N_CLASSIC", "48"))
     n_mpeg2 = int(os.environ.get("GOMP3_N_MPEG2", "16"))
     n_streams = n_classic + n_mpeg2
     chunk_t = int(os.environ.get("GOMP3_CHUNK_T", "240"))
 
-    starts_c, _, _ = index_stream(classic)
-    starts_m, _, _ = index_stream(mpeg2)
-    stream_data = [
-        rotate_at_frame(classic, starts_c, 1 + 29 * s) for s in range(n_classic)
-    ] + [rotate_at_frame(mpeg2, starts_m, 1 + 43 * s) for s in range(n_mpeg2)]
+    corpus = continuity_corpus(0)
+    stream_data = corpus[:n_classic] + corpus[48 : 48 + n_mpeg2]
 
     # geometry: count chunks with chunk-sized parse calls (LSF invariant)
     spp = np.zeros((chunk_t, SP8_TAIL_WIDTH), np.int8)

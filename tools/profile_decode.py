@@ -27,7 +27,9 @@ def main() -> None:
     from go_mp3_tpu.parallel.corpus import parse_stream_granules
     from go_mp3_tpu.ops.granule import init_state
 
-    data = open("/root/reference/example/classic_lame.mp3", "rb").read()
+    from go_mp3_tpu.synth import STEREO, generate_stream
+
+    data = generate_stream(STEREO, 385, seed=1)
 
     print("== host parse (python) ==")
     prof = cProfile.Profile()

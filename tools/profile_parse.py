@@ -8,8 +8,8 @@ attribute cost to pipeline stages:
   gmp_parse_packed  full parse -> int16 spectra + packed sidecar
   gmp_parse_packed8 full parse -> int8 spectra + escapes + byte sidecar
 
-Prints granules/s and the x-realtime each sustains on this host. The host
-is shared and 1-core: take the max over repeats.
+Prints granules/s and the x-realtime each sustains on this host, from the
+best of interleaved repeats.
 """
 
 from __future__ import annotations
@@ -17,9 +17,11 @@ from __future__ import annotations
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from go_mp3_tpu.consts import SAMPLES_PER_GR
 from go_mp3_tpu.native.lib import (
@@ -35,10 +37,9 @@ from go_mp3_tpu.native.lib import (
 
 def best_interleaved(fns: dict, n=9) -> dict:
     """Min PROCESS-CPU time per labeled thunk, alternating between them each
-    round so shared-host drift hits all variants equally. CPU time (not
-    wall) excludes hypervisor steal / descheduling on this shared 1-core
-    host — the right metric for comparing instruction-count changes
-    (absolute x-realtime numbers are optimistic in bad minutes)."""
+    round so host drift hits all variants equally. CPU time (not wall)
+    excludes descheduling on a shared host — the right metric for
+    comparing instruction-count changes."""
     out = {k: float("inf") for k in fns}
     for _ in range(n):
         for k, fn in fns.items():
@@ -49,9 +50,12 @@ def best_interleaved(fns: dict, n=9) -> dict:
 
 
 def main() -> None:
-    classic = open("/root/reference/example/classic_lame.mp3", "rb").read() * 4
-    mpeg2 = open("/root/reference/example/mpeg2.mp3", "rb").read()
-    corpora = [("classic_lame x4", classic, 44100), ("mpeg2", mpeg2, 22050)]
+    from go_mp3_tpu.synth import MONO, STEREO, generate_stream
+
+    corpora = [
+        ("MPEG-1 stereo, 1540 frames", generate_stream(STEREO, 1540, seed=1), 44100),
+        ("MPEG-2 mono, 2872 frames", generate_stream(MONO, 2872, seed=2), 22050),
+    ]
 
     cap = 8192
     sp16 = np.zeros((cap, 2, 576), np.int16)
